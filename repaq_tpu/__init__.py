@@ -1,4 +1,4 @@
-"""repaq_tpu: TPU-native lossless FASTQ codec, wire-compatible with
+"""repaq_tpu: accelerator-native lossless FASTQ codec, wire-compatible with
 OpenGene/repaq's .rfq container (algorithm version 2)."""
 
 from .constants import ALGORITHM_VER, VERSION_NUM

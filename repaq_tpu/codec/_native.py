@@ -6,15 +6,22 @@ librepaq_native provides them at memory speed with the exact reference
 semantics. Every entry point has a numpy/Python fallback in kernels_np, and
 the test suite runs both paths.
 
-Build: ``make -C repaq_tpu/native`` (done automatically on first import
-when a compiler is available).
+Build: on first use, from repaq_tpu/native/repaq_native.cpp into the
+git-ignored build/native/ directory of the checkout. The library's name
+carries a hash of the source, the Makefile and the host CPU's feature
+flags, so a checkout copied to another machine builds its own
+(-march=native) library instead of loading one that may not run there.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
+import sys
+import threading
 
 import numpy as np
 
@@ -24,7 +31,58 @@ _TRIED = False
 _DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native"
 )
-_SO = os.path.join(_DIR, "librepaq_native.so")
+_BUILD_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), "build", "native")
+
+
+def _cpu_flags() -> bytes:
+    try:
+        with open("/proc/cpuinfo", "rb") as f:
+            for line in f:
+                if line.startswith(b"flags"):
+                    return line
+    except OSError:
+        pass
+    return platform.machine().encode()
+
+
+def _library_path() -> str:
+    h = hashlib.sha256()
+    for name in ("repaq_native.cpp", "Makefile"):
+        with open(os.path.join(_DIR, name), "rb") as f:
+            h.update(f.read())
+    h.update(_cpu_flags())
+    return os.path.join(_BUILD_DIR,
+                        "librepaq_native-%s.so" % h.hexdigest()[:16])
+
+
+def _build(path: str) -> bool:
+    """Compile to a temporary name and rename into place, so concurrent
+    importers (test workers, codec processes) never load a half-written
+    library. Returns False, after saying why on stderr, if it fails."""
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    tmp = "%s.%d.tmp" % (path, os.getpid())
+    try:
+        subprocess.run(
+            ["make", "-s", "-C", _DIR, "OUT=%s" % tmp],
+            check=True, capture_output=True, timeout=300,
+        )
+        os.replace(tmp, path)
+        return True
+    except (OSError, subprocess.SubprocessError) as e:
+        detail = getattr(e, "stderr", b"") or b""
+        print("repaq_tpu: native host library build failed (%s); using the "
+              "numpy kernels. %s"
+              % (e, detail.decode(errors="replace")[-2000:]), file=sys.stderr)
+        return False
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+_SO = None  # the loaded library's path, set on first use
+_LOAD_LOCK = threading.Lock()
 
 _i64 = ctypes.c_int64
 _i32 = ctypes.c_int32
@@ -37,7 +95,7 @@ def _ptr(a: np.ndarray, typ):
     return a.ctypes.data_as(typ)
 
 
-_TLS = __import__("threading").local()
+_TLS = threading.local()
 
 
 def _scratch(key: str, nbytes: int) -> np.ndarray:
@@ -52,28 +110,23 @@ def _scratch(key: str, nbytes: int) -> np.ndarray:
 
 
 def _load():
-    global _LIB, _TRIED
+    if _TRIED:
+        return _LIB
+    with _LOAD_LOCK:  # one build and load, however many threads ask first
+        return _load_once()
+
+
+def _load_once():
+    global _LIB, _TRIED, _SO
     if _TRIED:
         return _LIB
     _TRIED = True
     if os.environ.get("REPAQ_TPU_NO_NATIVE"):
         return None
-    if not os.path.exists(_SO) or os.path.getmtime(_SO) < os.path.getmtime(
-        os.path.join(_DIR, "repaq_native.cpp")
-    ):
-        try:
-            subprocess.run(
-                ["make", "-s", "-C", _DIR],
-                check=True,
-                capture_output=True,
-                timeout=120,
-            )
-        except Exception:
-            return None
-    try:
-        lib = ctypes.CDLL(_SO)
-    except OSError:
+    _SO = _library_path()
+    if not os.path.exists(_SO) and not _build(_SO):
         return None
+    lib = ctypes.CDLL(_SO)
     # per-chunk entry points take raw pointer ints (c_void_p):
     # data_as(POINTER(..)) costs ~2 us per pointer argument in
     # marshalling, which showed up at ~8% of encode and ~14% of decode

@@ -2,8 +2,8 @@
 
 A ``ReadBlock`` is the fixed-layout array form of one chunk: flat uint8
 buffers plus offset arrays. This is the canonical interface between the
-FASTQ reader, the vectorized/TPU codec, and the container writer — the
-TPU-native replacement for the reference's vector<Read*> object graph
+FASTQ reader, the vectorized/device codecs, and the container writer — the
+array-native replacement for the reference's vector<Read*> object graph
 (reference read.h / repaq.cpp hot loops).
 """
 

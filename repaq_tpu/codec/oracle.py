@@ -2,7 +2,7 @@
 
 This module is the executable specification: a direct, readable Python
 rendering of the reference algorithms (reference rfqcodec.cpp) operating on
-individual reads. It is used as the test oracle for the vectorized/TPU
+individual reads. It is used as the test oracle for the vectorized/device
 paths and as the engine for small inputs; the production path is
 ``repaq_tpu.codec.vectorized``.
 """

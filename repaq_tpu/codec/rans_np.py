@@ -6,8 +6,9 @@ This replaces the reference's external `xz` subprocess stage (reference
 main.cpp:134-177) with an in-framework coder whose encode AND decode are
 data-parallel: the payload is split into L interleaved lanes, each lane is
 an independent 32-bit rANS stream, and all lanes advance in lockstep —
-one vectorized step per symbol position. That lockstep shape is exactly
-what a TPU wants (the reference's xz is inherently sequential).
+one vectorized step per symbol position. That lockstep shape is what a
+wide SIMD or GPU machine wants (the reference's xz is inherently
+sequential).
 
 Coder family: range-ANS, 32-bit state, 16-bit renormalization, 12-bit
 quantized frequencies (SCALE = 4096).

@@ -312,10 +312,9 @@ def quality_stats(seq: np.ndarray, qual: np.ndarray) -> dict:
         # (length-mismatched calls — palette construction from a bare
         # qual list — take the numpy path below, which never pairs the
         # two arrays when no N is present)
-        # fused native pass: both histograms + the N-quality relations at
-        # memory bandwidth (~15 ms for a 27M-base chunk vs ~0.5-1.2 s of
-        # separate numpy sweeps — header latency is per FILE, but the
-        # bench corpora are small enough that it showed)
+        # fused native pass: both histograms + the N-quality relations in
+        # one memory-bandwidth pass instead of six separate numpy sweeps
+        # (header latency is per FILE, but it shows on small corpora)
         sh, qh, meta = _native.quality_scan(
             np.ascontiguousarray(seq), np.ascontiguousarray(qual)
         )
@@ -339,8 +338,8 @@ def quality_stats(seq: np.ndarray, qual: np.ndarray) -> dict:
             "nonn_after_matches": bool(meta[3]) and not differs,
         }
     qual_ge128 = bool(np.any(qual >= 128))
-    # 256-entry LUT gather, not np.isin: isin's sort path costs seconds
-    # on a whole-chunk scan (27M bases) where the gather is ~50 ms
+    # 256-entry LUT gather, not np.isin: isin's sort path is far slower
+    # on a whole-chunk scan
     base_ok = np.zeros(256, dtype=bool)
     base_ok[np.frombuffer(b"ATCGN", dtype=np.uint8)] = True
     valid = base_ok[seq]

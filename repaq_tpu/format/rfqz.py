@@ -4,9 +4,9 @@ The reference reaches its best ratio by piping `.rfq` through the external
 `xz` binary (reference main.cpp:134-177) — an inherently sequential LZMA
 stage and a runtime dependency. `.rfqz` replaces that with the in-framework
 interleaved-rANS coder (codec/rans_np.py host oracle, ops/rans_device.py
-TPU kernels): the `.rfq` byte stream is cut into fixed-size blocks, each
+device kernels): the `.rfq` byte stream is cut into fixed-size blocks, each
 block is entropy-coded as one section with a per-section model choice, and
-both encode and decode are lane-parallel (TPU/SIMD-friendly) instead of
+both encode and decode are lane-parallel (GPU/SIMD-friendly) instead of
 bit-serial.
 
 Layout:
@@ -478,7 +478,7 @@ def encode_block(data: bytes | np.ndarray, lanes: int = rans_np.DEFAULT_LANES,
     # lane count adapts to the section size: every lane costs 8 fixed
     # bytes (u32 length + final state), so 4096 lanes = 32 KB — fine for
     # a 16 MB section (0.2%), ruinous for the ~200 KB LZ field planes.
-    # `lanes` acts as the cap (the TPU decode parallelism for big
+    # `lanes` acts as the cap (the device decode parallelism for big
     # sections); small sections drop to ~one lane per 2 KB.
     lanes = _auto_lanes(arr.shape[0], lanes)
     mode, counts0, pair = choose_mode(arr)

@@ -2165,8 +2165,8 @@ int64_t lz_parse(const uint8_t* data, int64_t n, int64_t min_match,
         int64_t next_snap = 0;
         // stride-3 grid: every-position insertion makes chains ~2-5x
         // denser than the old parse-policy ones and the MAXCHAIN walks
-        // proportionally slower (23 -> 10 MB/s measured) for ~0.1% token
-        // gain; stride 3 restores the speed at negligible ratio cost
+        // proportionally slower (about half the parse speed) for ~0.1%
+        // token gain; stride 3 restores the speed at negligible ratio cost
         // dictionary region (j < parse_from) gets stride 5: its chain
         // entries are cache-cold at walk time, so density there is the
         // dominant parse cost with a large history

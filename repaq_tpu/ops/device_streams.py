@@ -8,9 +8,9 @@ data-parallel passes:
 - run segmentation via cummax / suffix-cummin scans,
 - per-element token byte counts + prefix sums for output offsets,
 - byte emission as a GATHER over the output index space (for output slot k,
-  binary-search the emitting element and byte lane). TPU scatters serialize
-  per element; gathers vectorize on the VPU, so compaction is expressed as
-  out[k] = planes[element(k), lane(k)] instead of out.at[off].set(...).
+  binary-search the emitting element and byte lane), so compaction is
+  expressed as out[k] = planes[element(k), lane(k)] instead of
+  out.at[off].set(...).
 
 Output buffers are padded to static shapes; true lengths are returned as
 scalars and compact prefixes are fetched with the int32-bitcast helper in
@@ -55,7 +55,7 @@ def _sorted_stream(offs: list, bytes_: list, out_size: int, total,
     into one int32 key (out_size must stay < 2^23); wide=True runs a
     two-operand lax.sort with the byte as payload — ~25% more sort
     traffic, but offsets range to 2^31, which is what lets encode blocks
-    grow past 8 MB of output (round 4)."""
+    grow past 8 MB of output."""
     inf = jnp.int32(2**31 - 1)
     if not wide:
         keys = jnp.concatenate([
@@ -88,13 +88,11 @@ def _emit_sort(planes: jnp.ndarray, counts: jnp.ndarray, out_size: int,
                total: jnp.ndarray | None = None,
                multi_cap: int | None = None,
                extra_keys: jnp.ndarray | None = None):
-    """Sort-based stream compaction — the TPU-native shape for
-    variable-width token emission. Scatters and binary-search gathers
-    serialize on the VPU (~0.1 Gelem/s measured) while bitonic sort runs at
-    ~0.4 Gelem/s, so each candidate byte is keyed by its dest offset
-    (packed (offset << 8 | byte) below 2^23 output bytes; a two-operand
-    lax.sort beyond — see _sorted_stream), one sort lays the stream out,
-    and the prefix is the stream.
+    """Sort-based stream compaction for variable-width token emission:
+    each candidate byte is keyed by its dest offset (packed
+    (offset << 8 | byte) below 2^23 output bytes; a two-operand lax.sort
+    beyond — see _sorted_stream), one sort lays the stream out, and the
+    prefix is the stream.
 
     The sort is the dominant cost, so its key count is kept near n instead
     of n*W: every element contributes at most its FIRST byte as a dense
@@ -130,8 +128,7 @@ def _emit_sort(planes: jnp.ndarray, counts: jnp.ndarray, out_size: int,
         multi_cap = n
     multi_cap = min(multi_cap, n)
     if w > 1 and multi_cap > 0:
-        # compact multi-byte elements by sort-slice (a full sort is ~4x
-        # cheaper than jnp.nonzero's cumsum+scatter lowering on TPU)
+        # compact multi-byte elements by sort-slice
         i_n = jnp.arange(n, dtype=jnp.int32)
         midx = jnp.sort(jnp.where(counts >= 2, i_n, jnp.int32(n)))[:multi_cap]
         mcounts = jnp.concatenate([counts, jnp.zeros(1, jnp.int32)])[midx]
@@ -164,10 +161,8 @@ def _emit_sort_pay(b0: jnp.ndarray, counts: jnp.ndarray, out_size: int,
                    first_mask: jnp.ndarray | None = None):
     """_emit_sort_lazy with the multi-byte token FIELDS carried through
     the compaction sort as a payload operand instead of gathered
-    afterwards (round 5: the five ~multi_cap-sized gathers of the lazy
-    path serialize on the VPU at ~0.1 Gelem/s and dominated the emission
-    stage — ~14 ms of a 23 ms stage at 12 Mbase; a two-operand lax.sort
-    moves the same data at sort speed).
+    afterwards (the lazy path's five ~multi_cap-sized gathers become one
+    two-operand lax.sort).
 
     fields: (n,) int32 = (delta << 2) | ttype for gap/run tokens —
     everything the tail lanes need (ttype 0/1/2 = 1/2/4-byte token).
@@ -345,8 +340,7 @@ def encode_positions_from_mask(mask: jnp.ndarray, out_size: int,
     if n % 4 == 0 and pos_cap * 8 < n:
         # sparse mask: compact at 4-byte WORD granularity first, so the
         # big sort runs over n/4 keys instead of n (the N mask is ~0.1%
-        # dense on real data — the full-n sort was ~9 ms of the encode
-        # step at 5M, measured r3). Each set byte lands in a distinct
+        # dense on real data). Each set byte lands in a distinct
         # word at worst, so pos_cap words cover pos_cap positions.
         m4 = mask.reshape(-1, 4)
         nw = m4.shape[0]
@@ -384,15 +378,14 @@ def encode_positions_from_meta32(meta32: jnp.ndarray, n: int, out_size: int,
                                  pos_cap: int | None = None):
     """encode_positions_from_mask over the frontend's word-packed meta
     stream (bit 7 of each byte = N flag) — no byte-level relayout; the
-    word compaction tests all four flag bits with one AND (round 4)."""
+    word compaction tests all four flag bits with one AND."""
     nw = meta32.shape[0]
     if pos_cap is None:
         pos_cap = n
     pos_cap = max(1, min(pos_cap, n))
     # compaction granularity: a GROUP of 4 words (16 bases) when the mask
     # is very sparse — the compaction sort then runs over nw/4 keys
-    # instead of nw (round 5: the word-granular sort was ~5 ms of the
-    # 12-Mbase encode step at 0.1% N); groups containing an N <= npos <=
+    # instead of nw; groups containing an N <= npos <=
     # pos_cap, so a pos_cap-group slice never drops one (same argument
     # as the word granularity)
     if nw % 4 == 0 and 32 * pos_cap < n:
@@ -422,7 +415,6 @@ def encode_positions_from_meta32(meta32: jnp.ndarray, n: int, out_size: int,
 
 def qualcol_encode_device(qual: jnp.ndarray, bins: jnp.ndarray, major: jnp.ndarray,
                           in_table: jnp.ndarray, esc_cap: int | None = None,
-                          bid: jnp.ndarray | None = None,
                           nonmajor_cap: int | None = None,
                           out_size: int | None = None,
                           meta32: jnp.ndarray | None = None,
@@ -441,10 +433,10 @@ def qualcol_encode_device(qual: jnp.ndarray, bins: jnp.ndarray, major: jnp.ndarr
     one pass) should pass tight bucketed bounds — the grouping sort,
     classification scans, and emission sort all shrink from n to
     nonmajor_cap (typically 20-50% of n for Illumina data).
-    Round 4 fast path: meta32/qual32/n — the frontend's word-packed meta
+    Word-packed path: meta32/qual32/n — the frontend's word-packed meta
     stream (encode_frontend_meta32). Grouping-sort keys are built per
     byte LANE of the u32 words (4 fused planes + concat, order-free ahead
-    of the sort), so no byte-level relayout ever touches HBM.
+    of the sort), so no byte-level relayout is materialized.
     Returns (out: (4B + n + 8,) uint8, total_len).
     """
     if n is None:
@@ -459,11 +451,10 @@ def qualcol_encode_device(qual: jnp.ndarray, bins: jnp.ndarray, major: jnp.ndarr
     # ONE sort both groups the emitting positions (bid <= B) by bin AND
     # compacts away the major-qual ones: key = bid << 24 | pos, major
     # pushed to +inf, then slice the first nonmajor_cap entries. The
-    # power-of-two stride keeps the unpack to shifts/ands — integer
-    # division has no TPU hardware path and expanded to a measurable
-    # per-element sequence at this size. 24 position bits + 7 bin bits
-    # fill int32 exactly (bid <= nbins+1 < 127), so blocks reach 16 Mbase
-    # (round 4 — emission offsets ride the two-operand sort beyond 2^23).
+    # power-of-two stride keeps the unpack to shifts/ands. 24 position
+    # bits + 7 bin bits fill int32 exactly (bid <= nbins+1 < 127), so
+    # blocks reach 16 Mbase (emission offsets ride the two-operand sort
+    # beyond 2^23).
     m = nonmajor_cap
     assert n < (1 << 24) and nbins + 2 < 127, (
         "qualcol device path needs n < 2^24 (the bid<<24|pos key "
@@ -484,16 +475,12 @@ def qualcol_encode_device(qual: jnp.ndarray, bins: jnp.ndarray, major: jnp.ndarr
     else:
         # LUT: qual byte -> bin ordinal; escapes get pseudo-bin B (they
         # follow the streams in wire order), the major qual gets B+1
-        # (dropped). Callers may pass bid precomputed (the pallas fused
-        # front end emits it in the same id space).
-        if bid is None:
-            bin_idx = jnp.where(
-                in_table, jnp.int32(nbins + 1), jnp.int32(nbins)
-            )
-            bin_idx = bin_idx.at[bins].set(
-                jnp.arange(nbins, dtype=jnp.int32)
-            )
-            bid = bin_idx[qual]  # 0..B-1 stream, B escape, B+1 major
+        # (dropped)
+        bin_idx = jnp.where(
+            in_table, jnp.int32(nbins + 1), jnp.int32(nbins)
+        )
+        bin_idx = bin_idx.at[bins].set(jnp.arange(nbins, dtype=jnp.int32))
+        bid = bin_idx[qual]  # 0..B-1 stream, B escape, B+1 major
         i_n = jnp.arange(n, dtype=jnp.int32)
         keys_g = jnp.where(
             bid <= nbins, (bid.astype(jnp.int32) << 24) | i_n,
@@ -572,8 +559,7 @@ def qualcol_encode_device(qual: jnp.ndarray, bins: jnp.ndarray, major: jnp.ndarr
     # per-bin lengths for the u32le table. g_bid is SORTED (the grouping
     # sort), so each bin is a contiguous run: its byte length is a
     # difference of the counts prefix sum at the run boundaries — two
-    # tiny gathers instead of segment_sum's scatter-add over m (which
-    # measured 18 ms at m=2M on TPU, round 4)
+    # tiny gathers instead of segment_sum's scatter-add over m
     bounds = jnp.searchsorted(
         g_bid, jnp.arange(nbins + 1, dtype=g_bid.dtype), side="left"
     )
@@ -693,9 +679,7 @@ def coords_encode2_device(values2: jnp.ndarray, out_cap: int,
     """Both coordinate streams (X and Y) of a chunk in ONE pass: the two
     coders are independent instances of the same grammar, so batching the
     scans on axis 1 and giving each row its own output region in one
-    emission sort halves the fixed per-stream costs (round 5: two
-    separate coords calls measured ~6 ms of the 12-Mbase encode step —
-    mostly fixed pass overheads at B~78K).
+    emission sort halves the fixed per-stream costs.
 
     values2: (2, B) int32 (row 0 = X, row 1 = Y); per-row bytes identical
     to coords_encode_device. Returns (out (2*out_cap,) u8 — X stream at
@@ -793,8 +777,7 @@ def coords_encode2_device(values2: jnp.ndarray, out_cap: int,
 
 
 def _apply_map4(m: jnp.ndarray, s: jnp.ndarray) -> jnp.ndarray:
-    """out = m[..., s] for a 4-state map, unrolled into selects (a gather
-    here would serialize on the VPU)."""
+    """out = m[..., s] for a 4-state map, unrolled into selects."""
     return jnp.where(
         s == 0, m[..., 0],
         jnp.where(s == 1, m[..., 1], jnp.where(s == 2, m[..., 2], m[..., 3])),
@@ -811,8 +794,8 @@ def token_start_mask(lens: jnp.ndarray, force_start: jnp.ndarray | None = None):
     positions where a new token must begin regardless of state (per-bin
     stream boundaries).
 
-    Three-level structure chosen for BOTH runtime and compile time on TPU:
-    a flat associative_scan over n elements traces ~2*log2(n) copies of the
+    Three-level structure chosen for both runtime and compile time: a
+    flat associative_scan over n elements traces ~2*log2(n) copies of the
     16-select composition (minutes of XLA compile); instead a K-step
     lax.scan composes byte maps WITHIN blocks (one small loop body), a tiny
     associative_scan runs across the n/K block maps, and a second K-step
@@ -879,44 +862,6 @@ def token_start_mask(lens: jnp.ndarray, force_start: jnp.ndarray | None = None):
     return starts
 
 
-def token_start_mask_auto(lens: jnp.ndarray,
-                          force_start: jnp.ndarray | None = None,
-                          pallas_ok: bool = True):
-    """token_start_mask with the Pallas lane-block FSM when the stream is
-    big enough to amortize it. The 3-level lax.scan version spends ~36 ms
-    at 1M bytes (128 tiny sequential scan iterations are launch-overhead
-    bound, measured r3); the Pallas kernel walks 128-byte stretches
-    serially per lane with all lanes in parallel and tracks all four entry
-    states at once, so the whole FSM is one data pass + a tiny cross-block
-    scan (~2 ms at 1M)."""
-    n = lens.shape[0]
-    from .pallas_tpu import _FSM_K, _LANES, token_fsm_pallas
-
-    group = _FSM_K * _LANES
-    # pallas only on the real TPU backend (interpret mode is slower than
-    # the scan) and only when the caller allows it (pallas_call inside
-    # shard_map trips the vma check — mesh steps pass pallas_ok=False)
-    if n < 4 * group or not pallas_ok or jax.default_backend() != "tpu":
-        return token_start_mask(lens, force_start)
-    code = jnp.clip(lens, 1, 4).astype(jnp.uint8)
-    if force_start is not None:
-        code = code | (force_start.astype(jnp.uint8) << 3)
-    pad = (-n) % group
-    if pad:  # padded tail: 1-byte tokens, trimmed from the mask
-        code = jnp.concatenate([code, jnp.ones(pad, jnp.uint8)])
-    maps, mask4 = token_fsm_pallas(code)  # (nblk, 4) i32, (K, nblk) u8
-
-    def compose(a, b):
-        return jnp.stack(
-            [_apply_map4(b, a[..., j]) for j in range(4)], axis=-1
-        )
-
-    prefix = jax.lax.associative_scan(compose, maps)
-    entry = jnp.concatenate([jnp.zeros(1, jnp.int32), prefix[:-1, 0]])
-    starts = ((mask4 >> entry[None, :].astype(jnp.uint8)) & 1) == 1
-    return starts.T.reshape(-1)[:n]
-
-
 def _stream_lens_device(buf: jnp.ndarray) -> jnp.ndarray:
     """Per-byte token length for the gap/run stream grammar (valid only at
     token starts): 0xxxxxxx=1, 10xxxxxx=2, 110xxxxx=1, 111xxxxx=4."""
@@ -928,8 +873,7 @@ def _stream_lens_device(buf: jnp.ndarray) -> jnp.ndarray:
 
 def decode_positions_device(buf: jnp.ndarray, valid_len: jnp.ndarray,
                             max_positions: int, force_start=None,
-                            valid_begin=0, starts=None,
-                            pallas_ok: bool = True):
+                            valid_begin=0, starts=None):
     """Decode a gap/run stream (reference rfqcodec.cpp:957-1007) on device.
 
     buf: (m,) uint8 stream padded with >=4 zero bytes beyond valid_len;
@@ -945,9 +889,7 @@ def decode_positions_device(buf: jnp.ndarray, valid_len: jnp.ndarray,
     in_range = (idx >= valid_begin) & (idx < valid_len)
     if starts is None:
         lens = jnp.where(in_range, _stream_lens_device(buf), 1)
-        starts = token_start_mask_auto(
-            lens, force_start, pallas_ok=pallas_ok
-        ) & in_range
+        starts = token_start_mask(lens, force_start) & in_range
 
     b0 = buf.astype(jnp.int32)
     nxt1 = jnp.roll(buf, -1).astype(jnp.int32)
@@ -1013,14 +955,13 @@ def qualcol_decode_device(buf: jnp.ndarray, nbins: int, bins: jnp.ndarray,
                           tok_cap: int | None = None,
                           pos_cap: int | None = None,
                           esc_cap: int | None = None,
-                          pallas_ok: bool = True,
                           run_cap: int | None = None):
     """By-column quality decode (reference rfqcodec.cpp:1009-1047) on
-    device, in COMPACT token/slot space (round 3 — the decode dual of the
-    encode side's sort-based emission):
+    device, in COMPACT token/slot space (the decode dual of the encode
+    side's sort-based emission):
 
-    1. one token-FSM pass over the concatenated per-bin streams (Pallas
-       lane-block kernel for big streams; boundaries force restarts),
+    1. one token-FSM pass over the concatenated per-bin streams
+       (token_start_mask; boundaries force restarts),
     2. token compaction by a payload-carrying sort (the sorted stream
        index doubles as wire order == slot order),
     3. all per-token work (type, gap distance, run coverage, bin id,
@@ -1035,10 +976,7 @@ def qualcol_decode_device(buf: jnp.ndarray, nbins: int, bins: jnp.ndarray,
     5. ONE scatter of (position -> bin char) plus the escape records into
        the major-filled output.
 
-    The previous formulation did its rebuild in (length,)-space: a delta
-    scatter, several cumsums, a searchsorted and the qual scatter all over
-    n (~80 ms at n=5M measured r3); this one's big-space work is one fill
-    and one scatter (~15 ms).
+    The big-space (length,) work is one fill and one scatter.
 
     buf: (m,) uint8 (4*nbins length table + streams + escapes), padded
     with >=5 zero bytes; total_len: scalar true qual_buf size. tok_cap /
@@ -1078,8 +1016,7 @@ def qualcol_decode_device(buf: jnp.ndarray, nbins: int, bins: jnp.ndarray,
     force = force[:m] & in_streams
 
     lens_dev = jnp.where(in_streams, _stream_lens_device(buf), 1)
-    starts = token_start_mask_auto(lens_dev, force,
-                                   pallas_ok=pallas_ok) & in_streams
+    starts = token_start_mask(lens_dev, force) & in_streams
 
     # dense 4-byte little-endian window per byte (tokens are <= 4 bytes);
     # carried through the compaction sort as payload — no gather
@@ -1140,13 +1077,12 @@ def qualcol_decode_device(buf: jnp.ndarray, nbins: int, bins: jnp.ndarray,
     pos_first = pos_end - npos + 1
 
     if run_cap is not None:
-        # round 5: scatter DIRECTLY from token space with u8 .set — most
-        # tokens cover exactly ONE position; tokens covering >= 2 (runs,
-        # their count bounded by pos_cnt - tok_cnt, host-known) extend via
-        # a small compacted (run, 4-lane, 31) grid. Replaces the
-        # slot-space delta-scatter + cumsum + position scatter: scatter
-        # cost is per index (~0.17 Gelem/s for u8 .set on v5e; .add is
-        # 2x worse), so ONE ~tok-sized scatter beats two ~pos-sized ones.
+        # scatter DIRECTLY from token space with u8 .set — most tokens
+        # cover exactly ONE position; tokens covering >= 2 (runs, their
+        # count bounded by pos_cnt - tok_cnt, host-known) extend via a
+        # small compacted (run, 4-lane, 31) grid. Replaces the slot-space
+        # delta-scatter + cumsum + position scatter: ONE ~tok-sized
+        # scatter instead of two ~pos-sized ones.
         # Run-heavy chunks (2-bin RTA data) must keep the legacy path —
         # callers gate run_cap on (pos - tok) staying small.
         if nbins <= 16:
@@ -1272,6 +1208,41 @@ def pack_2bit_device(seq: jnp.ndarray) -> jnp.ndarray:
     return (v[:, 0] | (v[:, 1] << 2) | (v[:, 2] << 4) | (v[:, 3] << 6)).astype(
         jnp.uint8
     )
+
+
+def encode_frontend_meta32(seq32: jnp.ndarray, qual32: jnp.ndarray,
+                           bins: jnp.ndarray, major) -> tuple[
+                               jnp.ndarray, jnp.ndarray]:
+    """Encode front end over word-packed input: 2-bit pack, N flag and
+    quality-bin id in one elementwise pass (XLA fuses it into a single
+    read of seq+qual and a single write of packed+meta).
+
+    seq32/qual32: (nw,) u32 LITTLE-ENDIAN words of the seq/qual bytes (a
+    free numpy '<u4' view on the host), so byte k of word j is position
+    4j+k. bins: (B,) palette minus the major qual (B <= 63); major: its
+    own scalar. Returns (packed (nw,) u8, meta32 (nw,) u32): meta byte k
+    of word j holds the bin id of position 4j+k in bits 0-6 (0..B-1
+    palette stream, B escape, B+1 major) and the N flag in bit 7.
+    """
+    nbins = int(bins.shape[0])
+    assert nbins <= 63, nbins  # bin ids 0..B+1 must fit the 7 meta bits
+    bins = bins.astype(jnp.uint32)
+    major = jnp.asarray(major).astype(jnp.uint32)
+    packed = jnp.zeros_like(seq32)
+    meta = jnp.zeros_like(seq32)
+    for k in range(4):
+        b = (seq32 >> (8 * k)) & 0xFF
+        code = (jnp.where(b == ord("A"), 1, 0) + jnp.where(b == ord("T"), 2, 0)
+                + jnp.where(b == ord("C"), 3, 0)).astype(jnp.uint32)
+        packed = packed | (code << (2 * k))
+        q = (qual32 >> (8 * k)) & 0xFF
+        ib = jnp.full_like(q, nbins)  # escape unless a palette entry matches
+        for j in range(nbins):
+            ib = jnp.where(q == bins[j], jnp.uint32(j), ib)
+        ib = jnp.where(q == major, jnp.uint32(nbins + 1), ib)
+        ib = ib | jnp.where(b == ord("N"), jnp.uint32(0x80), 0)
+        meta = meta | (ib << (8 * k))
+    return packed.astype(jnp.uint8), meta
 
 
 def unpack_2bit_device(buf: jnp.ndarray) -> jnp.ndarray:

@@ -11,9 +11,9 @@ multi-host scaling needs no communication at all beyond ordered assembly:
 2. Every process derives the header independently from chunk 1 (bit
    identical by construction — no broadcast needed).
 3. Each process encodes its contiguous chunk range to a part file;
-   process 0 concatenates header + parts in order. On a TPU pod the same
-   plan feeds per-host device meshes (parallel/mesh) and the parts travel
-   over jax.distributed collectives instead of files; the file transport
+   process 0 concatenates header + parts in order. On a multi-host GPU
+   cluster the same plan feeds per-host device meshes (parallel/mesh) and
+   the parts travel over jax.distributed collectives instead of files; the file transport
    here keeps the mechanism testable with OS processes.
 
 Output bytes are identical to the serial pipeline for any process count

@@ -1,10 +1,10 @@
 """Multi-host compression over jax.distributed collectives.
 
-This is the pod-native transport for the byte-range sharding mechanism in
+This is the multi-host transport for the byte-range sharding mechanism in
 parallel/distributed.py (SURVEY §2.2 comm-backend row): instead of part
 FILES on a shared filesystem, every process encodes its contiguous chunk
 range in memory and the variable-length encoded bytes travel to the writer
-process over the jax.distributed process group (ICI/DCN on a real pod,
+process over the jax.distributed process group (NCCL across GPU hosts,
 TCP on the CPU test mesh) with an ORDERED gather — rank order equals chunk
 order, so the writer emits header + parts in gather order and the output
 is byte-identical to the serial pipeline.
@@ -20,8 +20,8 @@ with the pipeline's no-communication header rule):
   semantics)
 
 Tested on a 2-process x 4-virtual-CPU-device mesh in
-tests/test_jaxdist.py; the same code initializes over ICI/DCN on real
-pods (jax.distributed.initialize is backend-agnostic).
+tests/test_jaxdist.py; the same code initializes across real hosts
+(jax.distributed.initialize is backend-agnostic).
 """
 
 from __future__ import annotations
@@ -90,7 +90,8 @@ def gather_parts_ordered(part: bytes, num_processes: int,
     O(total). Returns total bytes written (0 on non-writer ranks).
 
     The gather is jax.experimental.multihost_utils.process_allgather —
-    a psum-of-one-hot under jit, riding ICI/DCN on real hardware.
+    a psum-of-one-hot under jit, riding the device interconnect on real
+    hardware.
     """
     from jax.experimental import multihost_utils
 

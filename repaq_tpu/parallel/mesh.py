@@ -5,8 +5,8 @@ name template) is fixed (reference: header read once repaq.cpp:270-277,
 chunks self-delimiting rfqchunk.cpp:161-171), so the natural multi-chip
 layout is one mesh axis `data`, read blocks sharded across it, and the
 small palette arrays replicated. Each device encodes its blocks; per-device
-stream lengths are all-gathered over ICI so every device (and the writer
-host) knows the container offsets for ordered assembly. TP/PP/SP/EP have no
+stream lengths are all-gathered so every device (and the writer host)
+knows the container offsets for ordered assembly. TP/PP/SP/EP have no
 analog here — there is no model to shard (SURVEY.md §2.2).
 
 Blocks are fixed-shape (reads_per_block, read_len) u8 arrays — the padded
@@ -19,6 +19,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..ops.device_streams import (
@@ -39,7 +40,6 @@ def make_mesh(devices=None, axis: str = "data") -> Mesh:
 
 def device_encode_block(seqs, quals, xs, ys, bins, major, in_table,
                         esc_cap: int | None = None,
-                        use_pallas: bool | None = None,
                         nonmajor_cap: int | None = None,
                         npos_cap: int | None = None,
                         qual_out_size: int | None = None,
@@ -59,38 +59,20 @@ def device_encode_block(seqs, quals, xs, ys, bins, major, in_table,
     counts ("n_esc", "n_nonmajor", "n_npos", one fused reduction each);
     callers passing non-exact caps must check counts <= caps before
     trusting the streams (the production engine computes exact counts
-    host-side, making the caps exact by construction). use_pallas: run
-    the fused pallas front end (pack + N mask + bin classify in one HBM
-    pass); defaults to True on the TPU backend. Returns a dict of padded
-    streams + true lengths.
+    host-side, making the caps exact by construction). Returns a dict of
+    padded streams + true lengths.
     """
     b, l = seqs.shape
     n = b * l
     flat_seq = seqs.reshape(-1)
     flat_qual = quals.reshape(-1)
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    if use_pallas:
-        from ..ops.pallas_tpu import encode_frontend_pallas
-
-        # pallas pads the tail with G (code 0) internally — same 2-bit
-        # layout as the reference's zero-padded final byte
-        packed, nmask, bid = encode_frontend_pallas(
-            flat_seq, flat_qual, bins, major
-        )
-    else:
-        pad = (-n) % 4
-        if pad:
-            flat_seq_p = jnp.concatenate(
-                [flat_seq, jnp.zeros(pad, dtype=jnp.uint8)]
-            )
-        else:
-            flat_seq_p = flat_seq
-        packed = pack_2bit_device(flat_seq_p)
-        nmask = flat_seq == ord("N")
-        bid = None
+    # zero tail bytes pack to code 0, the reference's zero-padded final byte
+    packed = pack_2bit_device(
+        jnp.concatenate([flat_seq, jnp.zeros((-n) % 4, dtype=jnp.uint8)])
+    )
+    nmask = flat_seq == ord("N")
     qual_out, qual_len = qualcol_encode_device(
-        flat_qual, bins, major, in_table, esc_cap=esc_cap, bid=bid,
+        flat_qual, bins, major, in_table, esc_cap=esc_cap,
         nonmajor_cap=nonmajor_cap, out_size=qual_out_size,
     )
     npos_out, npos_len = encode_positions_from_mask(
@@ -106,17 +88,11 @@ def device_encode_block(seqs, quals, xs, ys, bins, major, in_table,
                                         n_valid=n_valid_reads)
     # true counts behind the static caps (cheap fused reductions) — lets
     # callers detect a cap violation instead of shipping a silently
-    # truncated stream (ADVICE r1). bid (when the pallas front end ran)
-    # avoids a 256-LUT gather: escape = nbins, major = nbins + 1.
-    nbins = bins.shape[0]
+    # truncated stream (ADVICE r1).
     if not check_counts:
         # caller proved the caps exact host-side (the production engine's
         # mode): skip three full-n reductions
         n_esc = n_nonmajor = n_npos = jnp.int32(-1)
-    elif bid is not None:
-        n_esc = jnp.sum(bid == nbins).astype(jnp.int32)
-        n_nonmajor = jnp.sum(bid <= nbins).astype(jnp.int32)
-        n_npos = jnp.sum(nmask).astype(jnp.int32)
     else:
         n_esc = jnp.sum(~in_table[flat_qual]).astype(jnp.int32)
         n_nonmajor = jnp.sum(flat_qual != major).astype(jnp.int32)
@@ -140,8 +116,7 @@ def device_encode_block(seqs, quals, xs, ys, bins, major, in_table,
 def device_encode_pe_block(seq_mat, qual_mat, xs, ys, n_reads, n_pairs,
                            bins, major, in_table, overlap_shift: int,
                            esc_cap=None, nonmajor_cap=None, npos_cap=None,
-                           qual_out_size=None, npos_out_size=None,
-                           use_pallas: bool | None = None):
+                           qual_out_size=None, npos_out_size=None):
     """PE-interleaved encode of one fixed-shape block on one device:
     revcomp of odd rows, double-hash overlap search, elision compaction
     (two-operand sort), then the same stream kernels as the SE block —
@@ -201,7 +176,7 @@ def device_encode_pe_block(seq_mat, qual_mat, xs, ys, n_reads, n_pairs,
 
     out = device_encode_block(
         seq_concat.reshape(b_cap, L), tqual, xs, ys, bins, major,
-        in_table, esc_cap=esc_cap, use_pallas=use_pallas,
+        in_table, esc_cap=esc_cap,
         nonmajor_cap=nonmajor_cap, npos_cap=npos_cap,
         qual_out_size=qual_out_size, npos_out_size=npos_out_size,
         check_counts=False, n_valid_reads=n_pairs,
@@ -214,7 +189,6 @@ def device_encode_pe_block(seq_mat, qual_mat, xs, ys, n_reads, n_pairs,
 
 def device_decode_block(packed, qual_buf, qual_len, npos_buf, npos_len,
                         bins, major, reads, read_len,
-                        use_pallas: bool | None = None,
                         np_cap: int | None = None,
                         qualcol_caps: tuple | None = None):
     """Decode one fixed-shape block on one device: 2-bit unpack, by-column
@@ -225,18 +199,10 @@ def device_decode_block(packed, qual_buf, qual_len, npos_buf, npos_len,
     production engine computes host-side — defaults are safe structural
     bounds sized by the buffers."""
     n = reads * read_len
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    if use_pallas:
-        from ..ops.pallas_tpu import unpack_bases_pallas
-
-        seq = unpack_bases_pallas(packed)[:n]
-    else:
-        seq = unpack_2bit_device(packed)[:n]
+    seq = unpack_2bit_device(packed)[:n]
     if np_cap is None:
         np_cap = min(n, 32 * npos_buf.shape[0])
-    npos, _cnt = decode_positions_device(npos_buf, npos_len, np_cap,
-                                         pallas_ok=use_pallas)
+    npos, _cnt = decode_positions_device(npos_buf, npos_len, np_cap)
     tgt = jnp.where(npos >= 0, npos, n)
     seq = jnp.concatenate([seq, jnp.zeros(1, dtype=jnp.uint8)])
     seq = seq.at[tgt].set(ord("N"), mode="drop")[:n]
@@ -244,7 +210,6 @@ def device_decode_block(packed, qual_buf, qual_len, npos_buf, npos_len,
     qual = qualcol_decode_device(
         qual_buf, bins.shape[0], bins, major, n, qual_len,
         tok_cap=tok_cap, pos_cap=pos_cap, esc_cap=esc_cap,
-        pallas_ok=use_pallas,
     )
     return seq.reshape(reads, read_len), qual.reshape(reads, read_len)
 
@@ -279,8 +244,7 @@ def device_decode_pe_block(packed, qual_buf, qual_len, npos_buf, npos_len,
     if has_npos:
         if np_cap is None:
             np_cap = min(flat_cap, 32 * npos_buf.shape[0])
-        pos, _cnt = decode_positions_device(npos_buf, npos_len, np_cap,
-                                            pallas_ok=False)
+        pos, _cnt = decode_positions_device(npos_buf, npos_len, np_cap)
         tgt = jnp.where(pos >= 0, pos, flat_cap)
         seq = jnp.concatenate([seq, jnp.zeros(1, jnp.uint8)])
         seq = seq.at[tgt].set(ord("N"), mode="drop")[:flat_cap]
@@ -306,7 +270,6 @@ def device_decode_pe_block(packed, qual_buf, qual_len, npos_buf, npos_len,
     qual = qualcol_decode_device(
         qual_buf, bins.shape[0], bins, major, n, qual_len,
         tok_cap=tok_cap, pos_cap=pos_cap, esc_cap=esc_cap,
-        pallas_ok=False,
     )
     if not has_npos and nbq < 128:
         seq = jnp.where(qual == nbq, jnp.uint8(ord("N")), seq)
@@ -320,8 +283,8 @@ def device_decode_pe_block(packed, qual_buf, qual_len, npos_buf, npos_len,
 
 def make_sharded_encode_step(mesh: Mesh, axis: str = "data"):
     """jit-compiled SPMD encode step: blocks sharded over the mesh's data
-    axis, palette replicated, per-device stream lengths all-gathered (ICI)
-    so every participant knows the global container offsets."""
+    axis, palette replicated, per-device stream lengths all-gathered so
+    every participant knows the global container offsets."""
 
     def step(seqs, quals, xs, ys, bins, major, in_table):
         out = device_encode_block(
@@ -335,16 +298,11 @@ def make_sharded_encode_step(mesh: Mesh, axis: str = "data"):
             [out["qual_len"][0], out["npos_len"][0], out["x_len"][0],
              out["y_len"][0]]
         )
-        # every device learns all stream lengths over ICI -> container
-        # offsets without a host round-trip
+        # every device learns all stream lengths -> container offsets
+        # without a host round-trip
         all_lens = jax.lax.all_gather(lens, axis)  # (n_dev, 4)
         qual_off = jnp.cumsum(all_lens[:, 0]) - all_lens[:, 0]
         return out, all_lens[None], qual_off[None]
-
-    try:
-        from jax import shard_map
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
 
     sharded = shard_map(
         step,
@@ -387,11 +345,6 @@ def make_sharded_decode_step(mesh: Mesh, reads: int, read_len: int,
         )
         return seq[None], qual[None]
 
-    try:
-        from jax import shard_map
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
-
     sharded = shard_map(
         step,
         mesh=mesh,
@@ -406,7 +359,7 @@ def make_sharded_rans_step(mesh: Mesh, lanes: int, out_cap: int,
     """SPMD .rfqz second-stage step: every device entropy-codes its own
     section with the interleaved-rANS kernel (sections are self-contained,
     format/rfqz.py, so section-parallelism IS the scaling axis of the
-    second stage). Section byte sizes are all-gathered over ICI so every
+    second stage). Section byte sizes are all-gathered so every
     participant knows the container offsets without a host round trip."""
     from ..ops.rans_device import rans_encode_payload_device
 
@@ -416,11 +369,6 @@ def make_sharded_rans_step(mesh: Mesh, lanes: int, out_cap: int,
         )
         totals = jax.lax.all_gather(total, axis)
         return out[None], lane_bytes[None], totals[None]
-
-    try:
-        from jax import shard_map
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
 
     sharded = shard_map(
         step,

@@ -76,10 +76,7 @@ class _MeshBatchEncoder:
 
         from .mesh import device_encode_block
 
-        try:
-            from jax import shard_map
-        except ImportError:  # pragma: no cover - older jax
-            from jax.experimental.shard_map import shard_map
+        from jax import shard_map
 
         def step(seqs, quals, xs, ys, nv, bins, major, in_table):
             out = device_encode_block(
@@ -87,10 +84,6 @@ class _MeshBatchEncoder:
                 esc_cap=esc, nonmajor_cap=nm, npos_cap=npc,
                 qual_out_size=qos, npos_out_size=nos,
                 check_counts=False, n_valid_reads=nv[0],
-                # pallas_call inside shard_map trips jax's vma check on
-                # the real TPU backend (the CPU mesh never took this
-                # branch — found by the forced 1-device mesh bench, r5)
-                use_pallas=False,
             )
             return {
                 k: (v.reshape(1) if v.ndim == 0 else v)
@@ -224,10 +217,7 @@ class _MeshBatchPEEncoder:
 
             from .mesh import device_encode_pe_block
 
-            try:
-                from jax import shard_map
-            except ImportError:  # pragma: no cover
-                from jax.experimental.shard_map import shard_map
+            from jax import shard_map
 
             def step(seqs, quals, xs, ys, nv, npair, bins, major,
                      in_table):
@@ -236,7 +226,6 @@ class _MeshBatchPEEncoder:
                     major[0],
                     in_table, shift, esc_cap=esc, nonmajor_cap=nm,
                     npos_cap=npc, qual_out_size=qos, npos_out_size=nos,
-                    use_pallas=False,
                 )
                 return {
                     k: (v.reshape(1) if v.ndim == 0 else v)
@@ -378,17 +367,12 @@ class _MeshBatchDecoder:
 
             from .mesh import device_decode_block
 
-            try:
-                from jax import shard_map
-            except ImportError:  # pragma: no cover
-                from jax.experimental.shard_map import shard_map
+            from jax import shard_map
 
             def step(packed, qb, ql, nb, nl, bins, major):
-                # use_pallas=False: pallas_call inside shard_map trips
-                # the vma check; the XLA formulations are shard_map-clean
                 seq, qual = device_decode_block(
                     packed[0], qb[0], ql[0], nb[0], nl[0], bins, major[0],
-                    b_cap, L, use_pallas=False, np_cap=np_c,
+                    b_cap, L, np_cap=np_c,
                     qualcol_caps=qcaps,
                 )
                 return seq[None], qual[None]
@@ -625,10 +609,7 @@ class _MeshBatchDecoder:
 
         from .mesh import device_decode_pe_block
 
-        try:
-            from jax import shard_map
-        except ImportError:  # pragma: no cover
-            from jax.experimental.shard_map import shard_map
+        from jax import shard_map
 
         def step(packed, qbuf, ql, nbuf, nl, so, f, w, po, bins, major):
             seq, qual = device_decode_pe_block(

@@ -278,10 +278,8 @@ def test_emission_wide_path_matches_host(monkeypatch):
 
 def test_frontend_meta32_path_matches_host():
     """The word-packed frontend path (encode_frontend_meta32 +
-    qualcol/npos consuming meta32 directly — round 4's no-relayout
-    encode) must produce byte-exact streams vs the host kernels."""
-    from repaq_tpu.ops import pallas_tpu as PT
-
+    qualcol/npos consuming meta32 directly) must produce byte-exact
+    streams vs the host kernels."""
     rng = np.random.default_rng(3)
     n = 8192  # multiple of 512
     table = np.array([35, 44, 58], dtype=np.uint8)
@@ -301,7 +299,7 @@ def test_frontend_meta32_path_matches_host():
 
     @jax.jit
     def step(s32_, q32_):
-        packed, meta32 = PT.encode_frontend_meta32(
+        packed, meta32 = D.encode_frontend_meta32(
             s32_, q32_, jnp.asarray(table), jnp.uint32(major)
         )
         qo, ql = D.qualcol_encode_device(

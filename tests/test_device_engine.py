@@ -1,8 +1,8 @@
 """The production device engine (codec/device_engine.py) must be
 byte-identical to the host engine on every chunk it claims, fall back
 transparently otherwise, and roundtrip through the real CLI pipelines.
-Runs on the CPU backend (pallas interpret mode); the real-chip pass of the
-same engine runs in bench.py."""
+Runs on the CPU backend; the GPU pass of the same engine runs in
+chip_smoke.py."""
 
 import os
 import subprocess
@@ -373,3 +373,87 @@ def test_decode_shape_churn_bounded(eng):
         assert np.array_equal(back.qual_flat, qual)
     n_dec = len(eng._dec_cache)
     assert n_dec <= eng._MAX_DECODE_SHAPES + 1, n_dec
+
+
+@pytest.mark.parametrize("env_set", [True, False])
+def test_compile_cache_dir(monkeypatch, tmp_path, env_set):
+    """JAX_COMPILATION_CACHE_DIR wins when set; otherwise the cache lands
+    in the checkout's git-ignored .jax_cache directory."""
+    import types
+
+    from repaq_tpu.codec import device_engine as de
+
+    if env_set:
+        want = str(tmp_path / "xla")
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", want)
+    else:
+        want = os.path.join(REPO, ".jax_cache")
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        with open(os.path.join(REPO, ".gitignore")) as f:
+            assert ".jax_cache/" in f.read().split()
+    assert de.compile_cache_dir() == want
+
+    settings = {}
+    fake_jax = types.SimpleNamespace(config=types.SimpleNamespace(
+        update=lambda k, v: settings.__setitem__(k, v)))
+    monkeypatch.setattr(de, "_CACHE_ENABLED", False)
+    monkeypatch.delenv("REPAQ_NO_COMPILE_CACHE", raising=False)
+    de._enable_compile_cache(fake_jax)
+    assert settings["jax_compilation_cache_dir"] == want
+    assert os.path.isdir(want)
+
+
+def test_engine_records_compiles_once_per_shape():
+    """Each executable compiles once (ahead of time, timed) and serves
+    every later chunk of its shape."""
+    eng = DeviceEngine(min_bases=0)
+    block = _mk_block(512, 100, seed=3, illumina=False)
+    header = vectorized.make_header_se(block)
+    want = vectorized.encode_chunk(header, block).to_bytes()
+    for _ in range(2):
+        assert eng.encode_chunk(header, block).to_bytes() == want
+    assert eng.stats["device_chunks"] == 2
+    assert len(eng.compile_seconds) == len(eng._enc_cache) >= 1
+    assert all(s > 0 for s in eng.compile_seconds.values())
+
+
+def test_engine_threads_compile_once_and_count_every_chunk():
+    """Codec worker threads share one engine: each shape compiles once and
+    no chunk count is lost (more threads than cores, short switch
+    interval)."""
+    import threading
+
+    eng = DeviceEngine(min_bases=0)
+    jits = []
+
+    class CountingJax:
+        def __getattr__(self, name):
+            return getattr(eng_jax, name)
+
+        def jit(self, fn):
+            jits.append(fn)
+            return eng_jax.jit(fn)
+
+    eng_jax = eng._jax
+    eng._jax = CountingJax()
+    block = _mk_block(256, 80, seed=5, illumina=False)
+    header = vectorized.make_header_se(block)
+    want = vectorized.encode_chunk(header, block).to_bytes()
+    n_threads = 2 * (os.cpu_count() or 1) + 2
+    results = []
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=lambda: results.append(
+            eng.encode_chunk(header, block).to_bytes()))
+            for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert results == [want] * n_threads
+    assert eng.stats["device_chunks"] == n_threads
+    assert len(jits) == len(eng._enc_cache) == len(eng.compile_seconds)

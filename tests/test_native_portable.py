@@ -8,6 +8,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -19,14 +20,12 @@ SRC = os.path.join(
     "repaq_tpu", "native", "repaq_native.cpp",
 )
 
-needs_native = pytest.mark.skipif(
-    not _native.available() or shutil.which("g++") is None,
-    reason="native library or compiler unavailable",
-)
-
-
 @pytest.fixture(scope="module")
 def scalar_lib(tmp_path_factory):
+    # decided here, not at import: every test worker collects the same
+    # tests whether or not the library is built yet
+    if not _native.available() or shutil.which("g++") is None:
+        pytest.skip("native library or compiler unavailable")
     out = tmp_path_factory.mktemp("noavx") / "libscalar.so"
     subprocess.run(
         ["g++", "-std=c++17", "-O2", "-fPIC", "-shared", "-pthread",
@@ -49,7 +48,6 @@ def scalar_lib(tmp_path_factory):
     return lib
 
 
-@needs_native
 def test_reverse_slices_scalar_equivalence(scalar_lib):
     rng = np.random.default_rng(21)
     for trial in range(60):
@@ -71,7 +69,6 @@ def test_reverse_slices_scalar_equivalence(scalar_lib):
         np.testing.assert_array_equal(a, b)
 
 
-@needs_native
 def test_pack_unpack_scalar_equivalence(scalar_lib):
     rng = np.random.default_rng(22)
     for _ in range(60):
@@ -88,7 +85,6 @@ def test_pack_unpack_scalar_equivalence(scalar_lib):
         np.testing.assert_array_equal(ua, ub)
 
 
-@needs_native
 def test_overlap_scalar_equivalence(scalar_lib):
     rng = np.random.default_rng(23)
     for _ in range(60):
@@ -113,7 +109,6 @@ def test_overlap_scalar_equivalence(scalar_lib):
         np.testing.assert_array_equal(a, b)
 
 
-@needs_native
 def test_rans_scalar_equivalence(scalar_lib):
     """Encode bytes and decode output of the SIMD rANS must equal the
     generic build's for skewed alphabets across lane counts/orders."""
@@ -158,7 +153,6 @@ def test_rans_scalar_equivalence(scalar_lib):
         np.testing.assert_array_equal(a_out[:ta], b_out[:tb])
 
 
-@needs_native
 def test_parse_names_scalar_equivalence(scalar_lib):
     rng = np.random.default_rng(24)
     names = []
@@ -182,3 +176,31 @@ def test_parse_names_scalar_equivalence(scalar_lib):
         len(names), b.ctypes.data,
     )
     np.testing.assert_array_equal(a, b)
+
+
+def test_concurrent_builds_never_expose_a_partial_library(tmp_path):
+    """Several processes building the same library at once (test workers
+    importing together) each write a private temporary file and rename
+    it into place: every reader sees either no file or a whole one."""
+    if shutil.which("make") is None or shutil.which("g++") is None:
+        pytest.skip("no compiler")
+    target = str(tmp_path / "lib.so")
+    code = ("import sys; from repaq_tpu.codec import _native; "
+            "sys.exit(0 if _native._build(sys.argv[1]) else 1)")
+    repo = os.path.dirname(os.path.dirname(os.path.dirname(SRC)))
+    env = dict(os.environ, PYTHONPATH=repo)
+    procs = [subprocess.Popen([sys.executable, "-c", code, target], env=env)
+             for _ in range(4)]
+    for p in procs:
+        assert p.wait(timeout=300) == 0
+    lib = ctypes.CDLL(target)
+    lib.pack_2bit.restype = None
+    lib.pack_2bit.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                              ctypes.c_void_p]
+    seq = np.frombuffer(b"GATCGATCA", dtype=np.uint8)
+    out = np.empty(3, dtype=np.uint8)
+    lib.pack_2bit(seq.ctypes.data, seq.shape[0], out.ctypes.data)
+    from repaq_tpu.codec import kernels_np
+
+    np.testing.assert_array_equal(out, kernels_np.pack_2bit(seq))
+    assert os.listdir(tmp_path) == ["lib.so"]  # no temporary file left

@@ -10,9 +10,11 @@ import pytest
 from repaq_tpu.codec import _native
 from repaq_tpu.io import fastq as fq
 
-needs_native = pytest.mark.skipif(
-    not _native.available(), reason="native library unavailable"
-)
+@pytest.fixture
+def native():
+    """Skips, at run time, where the native library is unavailable."""
+    if not _native.available():
+        pytest.skip("native library unavailable")
 
 
 def _numpy_scan(buf: bytes, probe_start: int, start: int):
@@ -25,8 +27,7 @@ def _numpy_scan(buf: bytes, probe_start: int, start: int):
     return np.flatnonzero(new == ord("\n")) + start
 
 
-@needs_native
-def test_scan_newlines_matches_numpy_fuzz():
+def test_scan_newlines_matches_numpy_fuzz(native):
     rng = np.random.default_rng(7)
     alphabet = np.frombuffer(b"AC\nGT", dtype=np.uint8)
     danger = np.frombuffer(b"\r\n", dtype=np.uint8)
@@ -52,8 +53,7 @@ def test_scan_newlines_matches_numpy_fuzz():
             np.testing.assert_array_equal(got, want)
 
 
-@needs_native
-def test_scan_newlines_seam_cases():
+def test_scan_newlines_seam_cases(native):
     # '\n\n' straddling the seam: first '\n' is the probe byte
     buf = np.frombuffer(b"AC\n\nGT", dtype=np.uint8)
     assert _native.scan_newlines(buf, 2, 3, 6) is None
@@ -91,8 +91,7 @@ def _rand_pe_files(tmp_path, rng, n_pairs, crlf=False, tail_no_nl=False):
     return paths
 
 
-@needs_native
-def test_fused_pair_consume_matches_fallback(tmp_path, monkeypatch):
+def test_fused_pair_consume_matches_fallback(native, tmp_path, monkeypatch):
     rng = np.random.default_rng(11)
     for trial in range(8):
         n = int(rng.integers(1, 60))
@@ -145,8 +144,7 @@ def test_single_unterminated_record_roundtrips(tmp_path):
     assert back.read_bytes() == src.read_bytes()
 
 
-@needs_native
-def test_name2_predicates_match_oracle_semantics():
+def test_name2_predicates_match_oracle_semantics(native):
     """eq_first / pair_ok vs a direct rendering of oracle.py:495-521
     (substitution only when diff_pos < len; empty name2s compare equal)."""
     rng = np.random.default_rng(5)
@@ -177,8 +175,7 @@ def test_name2_predicates_match_oracle_semantics():
             assert pair_ok[p] == (bytes(a) == b), (p, a, b)
 
 
-@needs_native
-def test_all_same_slices_matches_gather():
+def test_all_same_slices_matches_gather(native):
     rng = np.random.default_rng(3)
     for _ in range(100):
         n = int(rng.integers(1, 50))
@@ -295,8 +292,7 @@ def test_mmap_reader_matches_bytearray_reader(tmp_path, monkeypatch, budget):
         assert a == b
 
 
-@needs_native
-def test_scatter_pieces_rc_matches_numpy():
+def test_scatter_pieces_rc_matches_numpy(native):
     """Fused decode restore kernel: even rows concatenate their 3 pieces,
     odd rows emit the reverse-complement of the concatenation — checked
     against the direct numpy construction on random piece tables."""
